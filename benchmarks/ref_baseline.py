@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Measure the COMPILED reference tracer (benchmarks/refbench) and compare
-this framework against it on identical scenes — closing VERDICT r4
-missing #1 ("the perf baseline is still an estimate").
+this framework against it on identical scenes, so the performance baseline
+is a measurement rather than an estimate.
 
 Protocol (SURVEY.md §7 hard-part 2: parity is statistical vs the C++
 binary):
@@ -163,7 +163,8 @@ def run_ours(scene, camera, cfg, spp):
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from pbrpathtracer_tpu.ops.integrator import render, tonemap_u8
+    from pbrpathtracer_tpu.api import render
+    from pbrpathtracer_tpu.ops.integrator import tonemap_u8
 
     rcfg = cfg.replace(spp=spp)
     img = np.asarray(render(scene, camera, rcfg))   # warm (compile)
@@ -220,6 +221,8 @@ def main():
                     help="reference OpenMP threads (0 = all cores)")
     args = ap.parse_args()
     configs = set(args.configs.split(","))
+    from pbrpathtracer_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import multiprocessing
     import numpy as np

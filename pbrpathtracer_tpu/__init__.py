@@ -1,7 +1,7 @@
-"""pbrpathtracer_tpu — a TPU-native differentiable PBR path-tracing
-framework (JAX/XLA/Pallas) with the capabilities of the reference C++ CPU
-tracer JCSaltFish/PBRPathTracer, re-architected as a megakernel-free
-wavefront renderer. See SURVEY.md for the blueprint and the api module for
+"""pbrpathtracer_tpu — a differentiable PBR path-tracing framework
+(JAX/XLA/Pallas) with the capabilities of the reference C++ CPU tracer
+JCSaltFish/PBRPathTracer, re-architected as a megakernel-free wavefront
+renderer that runs on NVIDIA GPUs. See SURVEY.md for the blueprint and the api module for
 the public surface."""
 
 from .api import (  # noqa: F401

@@ -3,8 +3,8 @@
 The reference builds a pointer-based binary BVH with a *random* split axis
 per node (fresh std::random_device, mesh.cpp:169-178), size-1 leaves that
 duplicate the triangle into both children (mesh.cpp:182-186), and recursive
-two-children-always traversal (pathtracer.cpp:411-462). TPU-native redesign
-(SURVEY.md §7 step 2, deviations documented):
+two-children-always traversal (pathtracer.cpp:411-462). Redesign for a
+vectorized walk (SURVEY.md §7 step 2, deviations documented):
 
 * deterministic split: median on the axis of largest centroid extent
   (traversal-order-only change — closest-hit results are identical);
@@ -25,14 +25,13 @@ Layout (FlatBVH):
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
-from flax import struct
 import jax.numpy as jnp
 
+from ..utils.pytree import pytree_dataclass, static_field
 
-@struct.dataclass
+
+@pytree_dataclass
 class FlatBVH:
     bounds_min: jnp.ndarray   # f32[M,3]
     bounds_max: jnp.ndarray   # f32[M,3]
@@ -40,7 +39,7 @@ class FlatBVH:
     count: jnp.ndarray        # i32[M]
     escape: jnp.ndarray       # i32[M]
     perm: jnp.ndarray         # i32[T]
-    leaf_size: int = struct.field(pytree_node=False, default=8)
+    leaf_size: int = static_field(8)
 
     @property
     def num_nodes(self) -> int:

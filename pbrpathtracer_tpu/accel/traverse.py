@@ -11,13 +11,18 @@ visited node (ops/rng.py).
 
 from __future__ import annotations
 
+import numpy as np
 import jax
 import jax.numpy as jnp
 
 from ..utils.constants import EPS
 from .build import FlatBVH
 
-BIG = jnp.float32(3.0e38)
+# A numpy scalar, not a jax Array: a module-level device array closed over
+# by traced code becomes a hoisted executable argument, which the jit fast
+# path then fails to pass ("Execution supplied N buffers but compiled
+# program expected N+k").
+BIG = np.float32(3.0e38)
 
 
 def _traverse_one(bvh_arrays, tris, leaf_size, ro, rd, t_lower, start):
@@ -30,7 +35,7 @@ def _traverse_one(bvh_arrays, tris, leaf_size, ro, rd, t_lower, start):
     # NaN-robust slabs: clamp |rd| >= TINY so (bound-ro)*inv_rd is never
     # 0*inf = NaN (rd==0 with the origin exactly on a node plane would
     # propagate NaN through min/max and wrongly cull the node).
-    TINY = jnp.float32(1e-30)
+    TINY = np.float32(1e-30)
     rd_safe = jnp.where(jnp.abs(rd) < TINY,
                         jnp.where(rd < 0.0, -TINY, TINY), rd)
     inv_rd = 1.0 / rd_safe

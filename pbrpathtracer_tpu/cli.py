@@ -172,7 +172,7 @@ def cmd_bench(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="pbrpathtracer_tpu",
-        description="TPU-native differentiable PBR path tracer")
+        description="differentiable PBR path tracer")
     sub = ap.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("render", help="render a scene to PNG")
@@ -187,17 +187,20 @@ def main(argv=None):
 
     p = sub.add_parser("fit", help="inverse-rendering fit")
     _add_render_args(p)
-    p.add_argument("--target", help="target image (default: self-render)")
+    p.add_argument("--target",
+                   help="target image, read with Pillow (default: self-render)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=2e-2)
     p.add_argument("--fit-camera", action="store_true")
     p.add_argument("--save-params")
     p.set_defaults(fn=cmd_fit)
 
-    p = sub.add_parser("bench", help="run the TPU benchmark")
+    p = sub.add_parser("bench", help="run the GPU benchmark")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -86,8 +86,11 @@ def fit(scene, camera, cfg, target, *, steps=100, lr=2e-2,
             checkpoint_path, params, opt_state)
     target = jnp.asarray(target)
 
+    # scene and camera are arguments, not constants folded into the
+    # compiled step: folding computes scene-derived floats on the host, a
+    # few ULPs away from what the device computes in ``render``
     @jax.jit
-    def step(params, opt_state, target, seed):
+    def step(params, opt_state, scene, camera, target, seed):
         loss, grads = jax.value_and_grad(l2_image_loss)(
             params, scene, camera, cfg, target, seed)
         updates, opt_state = opt.update(grads, opt_state, params)
@@ -97,7 +100,8 @@ def fit(scene, camera, cfg, target, *, steps=100, lr=2e-2,
 
     for s in range(start_step, steps):
         seed = jnp.uint32(cfg.seed + (s if sample_offset_per_step else 0))
-        params, opt_state, loss = step(params, opt_state, target, seed)
+        params, opt_state, loss = step(params, opt_state, scene, camera,
+                                       target, seed)
         losses.append(float(loss))
         if callback is not None:
             callback(s, losses[-1], params)

@@ -1,25 +1,29 @@
 """Multi-host distribution layer (SURVEY.md §2.2 / §5 distributed rows).
 
 The reference's only concurrency is two OpenMP threads sharing bools and a
-pixel buffer inside one process (main.cpp:3666-3677). The TPU-native
-replacement scales the ray wavefront across a pod slice:
+pixel buffer inside one process (main.cpp:3666-3677). This layer scales the
+ray wavefront across processes and their cards:
 
-  * one JAX process per host, joined via ``jax.distributed.initialize``;
+  * one JAX process per host (or per card), joined via
+    ``jax.distributed.initialize``;
   * a ("host", "device") mesh — device order sorted by (process_index,
-    device id) so each host owns a contiguous block of the mesh;
+    device id) so each process owns a contiguous block of the mesh;
   * the (pixel × sample) wavefront sharded over BOTH axes (the pixel
-    dimension splits host-major, so every host renders a contiguous image
-    stripe and intra-host sub-stripes ride ICI, never DCN);
+    dimension splits host-major, so every process renders a contiguous
+    image stripe and its cards sub-stripes of it);
   * the scene (triangles, BVH, materials, textures) replicated per device;
-  * parameter gradients psum'd over the whole mesh (XLA compiles the
-    intra-host part onto ICI and the inter-host part onto DCN);
+  * parameter gradients psum'd over the whole mesh;
   * the final image assembled on host 0 with one cross-process gather.
 
 Rays are embarrassingly parallel, so forward renders need ZERO cross-host
 communication until the final gather; inverse rendering adds exactly one
-all-reduce (the grad psum) per step. Tested without a pod by running two
-CPU processes over localhost (tests/test_multihost.py), exactly as the
-blueprint prescribes.
+all-reduce (the grad psum) per step. Tested by running two CPU processes
+over localhost (tests/test_multihost.py).
+
+Several processes on one machine must each open only their own card: a
+JAX process reserves most of every card it opens. Pass
+``local_device_ids`` to ``initialize`` (or start each process with its own
+``CUDA_VISIBLE_DEVICES``).
 """
 
 from __future__ import annotations
@@ -39,13 +43,16 @@ DEVICE_AXIS = "device"
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
+               local_device_ids=None,
                **kw) -> tuple[int, int]:
     """Join the multi-host job; returns (process_index, process_count).
 
     Arguments fall back to the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) and to whatever auto-detection
-    ``jax.distributed.initialize`` supports on the platform. Call once per
-    process, before any other JAX API touches the backend.
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID). Nothing auto-detects a cluster on
+    a plain GPU machine, so give all three. ``local_device_ids`` limits
+    this process to those cards of its machine (e.g. ``[process_id]`` for
+    one process per card). Call once per process, before any other JAX
+    API touches the backend.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -55,16 +62,17 @@ def initialize(coordinator_address: str | None = None,
         process_id = int(os.environ["JAX_PROCESS_ID"])
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id, **kw)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids, **kw)
     return jax.process_index(), jax.process_count()
 
 
 def host_device_mesh(devices=None) -> Mesh:
     """("host", "device") mesh over all global devices.
 
-    Rows = processes (hosts), columns = each host's local chips. Device
-    order inside the mesh is (process_index, device id), so the host axis
-    boundary coincides with the DCN boundary.
+    Rows = processes (hosts), columns = each process's local cards.
+    Device order inside the mesh is (process_index, device id), so the
+    host axis boundary coincides with the process boundary.
     """
     if devices is None:
         devices = jax.devices()
@@ -88,7 +96,7 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 def render_multihost(scene, camera, cfg, mesh: Mesh | None = None,
                      seed=None, gather: bool = True):
-    """Forward render with the wavefront sharded across hosts and chips.
+    """Forward render with the wavefront sharded across hosts and cards.
 
     Every host computes only its local pixel stripe. With ``gather=True``
     (default) the full f32[H, W, 3] image is assembled on every host via
@@ -143,7 +151,7 @@ def make_train_step_multihost(scene, camera, cfg, optimizer,
 
     Same contract as parallel.render.make_train_step: params/optimizer
     state replicated, pixels + target sharded; grads all-reduce over both
-    mesh axes via GSPMD (ICI within a host, DCN across hosts).
+    mesh axes.
     """
     from ..parallel.render import make_train_step
     if mesh is None:

@@ -23,6 +23,7 @@ time/sample, elapsed (pause-aware), triangle count — via .metrics().
 from __future__ import annotations
 
 import enum
+import functools
 import threading
 import time
 
@@ -33,6 +34,17 @@ import jax.numpy as jnp
 from ..ops.integrator import render_accumulate, tonemap_u8
 from ..scene.editor import EditorScene
 from .config import RenderConfig
+
+
+@functools.partial(jax.jit, static_argnames="cfg")
+def _one_pass(scene, camera, accum, sample_start, cfg):
+    """One progressive 1-spp pass. Scene and camera are arguments, not
+    constants of the compiled pass: as constants XLA folds scene-derived
+    floats on the host, a few ULPs off the device's values, which on the
+    GPU flips a few hit decisions against ``render``. As arguments the
+    accumulation equals ``render_accumulate`` with the summed spp bit for
+    bit, and sessions on one config share one executable."""
+    return render_accumulate(scene, camera, cfg, accum, sample_start, 1)
 
 
 class RenderState(enum.Enum):
@@ -68,16 +80,7 @@ class RenderSession:
             self._camera = self.editor.tracer_camera()
         if self._scene is None or self._camera is None:
             raise RuntimeError("no scene: give an editor or (scene, camera)")
-        # Progressive passes are forward-only by construction: keep the
-        # pure n_rays*segs unroll budget (no spp residual multiplier).
-        cfg = self.cfg.replace(forward_only=True)
-        scene, camera = self._scene, self._camera
-
-        @jax.jit
-        def one_pass(accum, sample_start):
-            return render_accumulate(scene, camera, cfg, accum,
-                                     sample_start, 1)
-        self._step_fn = one_pass
+        self._step_fn = functools.partial(_one_pass, cfg=self.cfg)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -144,7 +147,8 @@ class RenderSession:
                 self._note_elapsed()
                 self.state = RenderState.PAUSED   # auto-pause (main.cpp:3612)
                 break
-            self.accum = self._step_fn(self.accum, jnp.uint32(self.samples))
+            self.accum = self._step_fn(self._scene, self._camera, self.accum,
+                                       jnp.uint32(self.samples))
             self.samples += 1
             done += 1
         return done

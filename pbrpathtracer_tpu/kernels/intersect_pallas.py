@@ -1,49 +1,32 @@
-"""Fused Pallas closest-hit kernel with chunk culling.
+"""Fused closest-hit kernel with chunk culling (Pallas, Triton route).
 
-The jnp intersectors materialize the [N, 4*chunk] Moller-Trumbore test
-matrix in HBM between the compute and the acceptance tests - at 512^2
-rays that is gigabytes of traffic per query and ~10x off roofline. And
-per-lane BVH walks (accel/traverse.py) are gather-bound: measured ~40x
-slower than dense brute force on the TPU at 50k triangles.
+The plain GPU route, ``intersect_matmul`` (ops/intersect.py), writes an
+[N, 4·chunk] fp32 test matrix to device memory for every triangle chunk
+and reads it back for the acceptance tests; at 1024×768 rays that is
+about 1.6 GB of traffic per query, and its K = 10 product gives the
+tensor cores nothing to do. This kernel keeps all of it in registers:
 
-This kernel is the TPU-native middle path - a "wide BVH" of exactly two
-levels, fused in VMEM:
+  * one program per block of ``BLOCK_RAYS`` rays, one ray per thread;
+    the running best (t, u, v, id) lives in registers for the whole
+    query and is written once;
+  * triangles are grouped in chunks of ``CHUNK`` with a precomputed AABB
+    (in BVH depth-first order when the scene has a BVH, so a chunk is a
+    tight spatial cluster). A ``fori_loop`` walks the chunks; each ray
+    slab-tests the chunk box against its current best t, and the block
+    skips the chunk when no live lane can hit it - the per-chunk skip
+    XLA cannot express;
+  * surviving chunks run classic Möller–Trumbore (pathtracer.cpp:373-409
+    operation order) one triangle at a time: nine scalar loads shared by
+    the block, the arithmetic vectorized over its rays;
+  * dead lanes (``alive`` False) never enable a chunk and report a clean
+    miss (ops/intersect.mask_dead contract); an all-dead block skips the
+    walk entirely.
 
-  * triangles are pre-ordered by BVH DFS locality (scene.accel.perm when
-    available), so each fixed-size chunk is a tight spatial cluster with a
-    precomputed AABB;
-  * grid = (ray_tiles, tri_chunks), chunk dim innermost: the per-tile
-    best-hit accumulators stay resident in VMEM;
-  * per step, every ray in the tile slab-tests the chunk AABB (pruned by
-    its current best t); if NO lane can hit, the whole test block is
-    skipped (`pl.when`) - dense lanes, BVH-like work saving;
-  * otherwise: classic Moller-Trumbore evaluated directly on the VPU as
-    broadcast [CHUNK, TILE] f32 arithmetic, followed by acceptance tests
-    and a masked running-min.
+Ties between equal t resolve to the earliest triangle in walk order (the
+jnp intersectors' ``argmin`` order when no BVH permutation applies).
 
-Layout is everything on TPU, so this kernel puts the RAY dimension on
-LANES (minor) and the triangle dimension on SUBLANES:
-
-  * rays ship as one dense [8, N] block (rd, ro, t_lower rows) - a
-    [N, 8] block would waste 15/16 of every (8,128) DMA tile;
-  * outputs are [8, N] rows (t, u, v / winner id) - dense, vs [N, 1]
-    columns which pad 128x;
-  * triangle components [CHUNK, 1] broadcast along lanes, ray components
-    [1, TILE] along sublanes - both hardware-native splats;
-  * the winner reduction (min + masked iota-min) runs across SUBLANES,
-    the fast reduction axis, producing lane-dense [1, TILE] rows;
-  * triangle padding granularity is 8 (sublanes), not 128 (lanes): a
-    36-triangle Cornell box pads to 40, not 128 - 3.2x less wasted work
-    on small scenes.
-
-Measured against alternatives on-chip (512^2 rays, Cornell): ray-major
-layout 12 ms, bilinear MXU form 17 ms (K=10 of 128 leaves 92% of the
-systolic array idle and f32-exact needs 6 bf16 passes), this kernel
-~3 ms, bit-exact vs the jnp classic intersector. The matmul form remains
-in ops/intersect.py as the XLA-fusion fallback for non-TPU backends.
-
-Replaces the reference's recursive BVH walk + scalar Moller-Trumbore
-(pathtracer.cpp:373-492) as the TPU hot path.
+The kernel compiles for the GPU only. ``interpret=True`` runs it on the
+CPU through the Pallas interpreter; only tests turn that on.
 """
 
 from __future__ import annotations
@@ -54,333 +37,180 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ..utils.constants import EPS
 
 BIG = np.float32(3.0e38)
-MAX_CHUNK = 512    # max triangles per grid step (cull granularity)
-# TILE*CHUNK pair-block budget. At 256K f32 elements the ~16 live
-# [CHUNK, TILE] temporaries (h, s, q, numerators, u/v/t, masks) total
-# ~16 MB — nominally the whole 16 MB/core VMEM, but several temporaries
-# are i1 masks and Mosaic's liveness analysis frees the cross-product
-# terms before the acceptance tests, so the measured peak fits with room
-# for the accumulators + triangle rows (validated on-chip: bit-exact vs
-# the jnp intersectors at this setting). If a Mosaic update regresses
-# liveness, drop this to 192K first.
-PAIR_BUDGET = 256 * 1024
-INT_BIG = np.int32(2 ** 31 - 1)
-# Scenes with more chunks than this route to the candidate-list kernel
-# (intersect_pallas_list.py); small scenes keep the dense grid, whose
-# single-chunk case has no list/DMA bookkeeping at all.
-LIST_KERNEL_MIN_CHUNKS = 4
-# List route only: sort query rays by (dead-last, direction octant,
-# origin Morton) before tiling. Two effects, both measured on the 50k-tri
-# rung-3 scene: (a) dead lanes pack into trailing tiles whose candidate
-# count is 0 (a segment-3 query with 8% lanes live cost 206 ms unsorted —
-# every tile still walked its candidates for a lane or two); (b) live
-# bounce rays regain tile coherence, shrinking each tile's candidate
-# union. Costs one argsort + [N,6]-gather/[N,5]-scatter per query
-# (~28 ms at 512² — why the integrator instead sorts the WHOLE wavefront
-# once per segment with the same key, ops/compaction.coherence_key, and
-# this stays off by default: it serves direct intersect_pallas callers
-# whose rays arrive unsorted).
-SORT_RAYS = False
+BLOCK_RAYS = 128   # rays per program (one per thread at NUM_WARPS=4)
+NUM_WARPS = 4
+CHUNK = 16         # triangles per culling box
+TINY = np.float32(1e-30)
+# Columns of the [T, TRI_COLS] triangle table: v0(3), e1(3), e2(3), then
+# padding so each triangle's row is one aligned 64-byte line.
+TRI_COLS = 16
 
 
-def _spread3(x):
-    """Interleave 8-bit x into every 3rd bit (Morton spread, i32)."""
-    x = x & 0xFF
-    x = (x | (x << 8)) & 0x00F00F
-    x = (x | (x << 4)) & 0x0C30C3
-    x = (x | (x << 2)) & 0x249249
-    return x
+def _kernel(n_chunks, chunk, r_ref, w_ref, box_ref,
+            ot_ref, ou_ref, ov_ref, oi_ref):
+    rdx, rdy, rdz = r_ref[0, :], r_ref[1, :], r_ref[2, :]
+    rox, roy, roz = r_ref[3, :], r_ref[4, :], r_ref[5, :]
+    t_lower = r_ref[6, :]
+    alive = r_ref[7, :] > 0.0
 
+    # NaN-robust slabs: clamping |rd| >= TINY keeps (bound - ro) / rd
+    # finite-or-inf (never 0·inf) with identical accept/reject decisions.
+    def inv(d):
+        return 1.0 / jnp.where(jnp.abs(d) < TINY,
+                               jnp.where(d < 0.0, -TINY, TINY), d)
+    ix, iy, iz = inv(rdx), inv(rdy), inv(rdz)
 
-def _ray_sort_key(ro, rd, alive, bbox_lo, bbox_hi):
-    """i32 sort key: dead rays last; live rays by (octant, origin Morton)."""
-    oct_ = ((rd[:, 0] > 0).astype(jnp.int32)
-            | ((rd[:, 1] > 0).astype(jnp.int32) << 1)
-            | ((rd[:, 2] > 0).astype(jnp.int32) << 2))
-    scale = 255.0 / jnp.maximum(bbox_hi - bbox_lo, 1e-6)
-    q = jnp.clip((ro - bbox_lo) * scale, 0.0, 255.0).astype(jnp.int32)
-    morton = ((_spread3(q[:, 0]) << 2) | (_spread3(q[:, 1]) << 1)
-              | _spread3(q[:, 2]))
-    key = (oct_ << 24) | morton
-    if alive is None:
-        return key
-    return jnp.where(alive, key, INT_BIG)
-
-
-def _pick_chunk(t_pad: int) -> int:
-    return min(MAX_CHUNK, t_pad)
-
-
-def _pick_tile(n_pad: int, chunk: int) -> int:
-    tile = PAIR_BUDGET // chunk
-    tile = max(256, min(8192, (tile // 256) * 256))
-    return min(tile, n_pad)
-
-
-def _kernel(CHUNK, TILE, r_ref, w_ref, box_ref, of_ref, oi_ref):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        of_ref[:] = jnp.full_like(of_ref, BIG)
-        of_ref[1:3, :] = jnp.zeros_like(of_ref[1:3, :])
-        oi_ref[:] = jnp.zeros_like(oi_ref)
-
-    R = r_ref[:]                      # [8, TILE]: rd(3), ro(3), t_lower, alive
-    rd3 = R[0:3, :]
-    ro3 = R[3:6, :]
-    alive_row = R[7:8, :] > 0.0       # [1, TILE] live-lane gate
-
-    # ---- chunk culling: slab test vs the cluster AABB, pruned by best t ----
-    row = box_ref[pl.ds(j, 1), :]     # [1, 8] dynamic row of the box table
-    lo = row[0, 0:3]                  # [3]
-    hi = row[0, 4:7]
-    # NaN-robust slabs: a literal 1/rd gives (lo-ro)*inf = NaN when rd==0
-    # AND the origin sits exactly on the slab plane, which would wrongly
-    # cull the chunk. Clamping |rd| >= TINY keeps every product finite-or-inf
-    # (never 0*inf) with identical accept/reject decisions otherwise.
-    TINY = np.float32(1e-30)
-    rd_safe = jnp.where(jnp.abs(rd3) < TINY,
-                        jnp.where(rd3 < 0.0, -TINY, TINY), rd3)
-    ird = 1.0 / rd_safe
-    t1 = (lo[:, None] - ro3) * ird
-    t2 = (hi[:, None] - ro3) * ird
-    tn = jnp.max(jnp.minimum(t1, t2), axis=0, keepdims=True)   # [1, TILE]
-    tf = jnp.min(jnp.maximum(t1, t2), axis=0, keepdims=True)
-    t_best = of_ref[0:1, :]
-    # Dead lanes never enable a chunk: with live lanes compacted to a
-    # prefix (ops/compaction.py) trailing all-dead tiles skip every
-    # Möller–Trumbore block below.
-    can_hit = (tn < tf) & (tf > 0.0) & (tn < t_best) & alive_row
-    any_hit = jnp.any(can_hit)
-
-    @pl.when(any_hit)
-    def _():
-        Wb = w_ref[:]                 # [CHUNK, 16] SoA triangle columns
-        v0x, v0y, v0z = Wb[:, 0:1], Wb[:, 1:2], Wb[:, 2:3]   # [CHUNK, 1]
-        e1x, e1y, e1z = Wb[:, 3:4], Wb[:, 4:5], Wb[:, 5:6]
-        e2x, e2y, e2z = Wb[:, 6:7], Wb[:, 7:8], Wb[:, 8:9]
-        rdx, rdy, rdz = R[0:1, :], R[1:2, :], R[2:3, :]      # [1, TILE]
-        rox, roy, roz = R[3:4, :], R[4:5, :], R[5:6, :]
-        tl = R[6:7, :]
-
-        # Classic Moller-Trumbore (pathtracer.cpp:373-409 operation order),
-        # broadcast to the [CHUNK, TILE] pair block on the VPU.
+    def tri_body(c, can_hit, k, best):
+        bt, bu, bv, bi = best
+        j = c * chunk + k
+        v0x, v0y, v0z = w_ref[j, 0], w_ref[j, 1], w_ref[j, 2]
+        e1x, e1y, e1z = w_ref[j, 3], w_ref[j, 4], w_ref[j, 5]
+        e2x, e2y, e2z = w_ref[j, 6], w_ref[j, 7], w_ref[j, 8]
         hx = rdy * e2z - rdz * e2y
         hy = rdz * e2x - rdx * e2z
         hz = rdx * e2y - rdy * e2x
         a = e1x * hx + e1y * hy + e1z * hz
-        sx = rox - v0x
-        sy = roy - v0y
-        sz = roz - v0z
+        sx, sy, sz = rox - v0x, roy - v0y, roz - v0z
         u_num = sx * hx + sy * hy + sz * hz
         qx = sy * e1z - sz * e1y
         qy = sz * e1x - sx * e1z
         qz = sx * e1y - sy * e1x
         v_num = rdx * qx + rdy * qy + rdz * qz
         t_num = e2x * qx + e2y * qy + e2z * qz
-
         denom_ok = jnp.abs(a) >= EPS
         f = jnp.where(denom_ok, 1.0 / jnp.where(denom_ok, a, 1.0), 0.0)
         u = u_num * f
         v = v_num * f
         t = t_num * f
-        valid = (denom_ok & (u >= 0.0) & (u <= 1.0)
-                 & (v >= 0.0) & (u + v <= 1.0)
-                 & (t > EPS) & (t > tl) & can_hit)
-        t_m = jnp.where(valid, t, BIG)
+        take = (denom_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+                & (u + v <= 1.0) & (t > EPS) & (t > t_lower) & can_hit
+                & (t < bt))
+        return (jnp.where(take, t, bt), jnp.where(take, u, bu),
+                jnp.where(take, v, bv), jnp.where(take, j, bi))
 
-        # chunk-local winner via sublane reductions (ties -> lowest row,
-        # matching jnp.argmin)
-        t_min = jnp.min(t_m, axis=0, keepdims=True)          # [1, TILE]
-        rows = jax.lax.broadcasted_iota(jnp.int32, t_m.shape, 0)
-        row_min = jnp.min(jnp.where(t_m == t_min, rows, INT_BIG), axis=0,
-                          keepdims=True)
-        win = rows == row_min
-        u_win = jnp.sum(jnp.where(win, u, 0.0), axis=0, keepdims=True)
-        v_win = jnp.sum(jnp.where(win, v, 0.0), axis=0, keepdims=True)
+    def chunk_body(c, best):
+        t1x = (box_ref[c, 0] - rox) * ix
+        t1y = (box_ref[c, 1] - roy) * iy
+        t1z = (box_ref[c, 2] - roz) * iz
+        t2x = (box_ref[c, 4] - rox) * ix
+        t2y = (box_ref[c, 5] - roy) * iy
+        t2z = (box_ref[c, 6] - roz) * iz
+        tn = jnp.maximum(jnp.maximum(jnp.minimum(t1x, t2x),
+                                     jnp.minimum(t1y, t2y)),
+                         jnp.minimum(t1z, t2z))
+        tf = jnp.minimum(jnp.minimum(jnp.maximum(t1x, t2x),
+                                     jnp.maximum(t1y, t2y)),
+                         jnp.maximum(t1z, t2z))
+        can_hit = (tn < tf) & (tf > 0.0) & (tn < best[0]) & alive
+        any_hit = jnp.max(can_hit.astype(jnp.int32)) > 0
+        return jax.lax.cond(
+            any_hit,
+            lambda b: jax.lax.fori_loop(
+                0, chunk, functools.partial(tri_body, c, can_hit), b),
+            lambda b: b, best)
 
-        better = t_min < t_best
-        of_ref[0:1, :] = jnp.where(better, t_min, t_best)
-        of_ref[1:2, :] = jnp.where(better, u_win, of_ref[1:2, :])
-        of_ref[2:3, :] = jnp.where(better, v_win, of_ref[2:3, :])
-        oi_ref[0:1, :] = jnp.where(better, row_min + j * CHUNK,
-                                   oi_ref[0:1, :])
+    best = (jnp.full_like(rdx, BIG), jnp.zeros_like(rdx),
+            jnp.zeros_like(rdx), jnp.zeros(rdx.shape, jnp.int32))
+    any_alive = jnp.max(alive.astype(jnp.int32)) > 0
+    bt, bu, bv, bi = jax.lax.cond(
+        any_alive,
+        lambda b: jax.lax.fori_loop(0, n_chunks, chunk_body, b),
+        lambda b: b, best)
+    ot_ref[:] = bt
+    ou_ref[:] = bu
+    ov_ref[:] = bv
+    oi_ref[:] = bi
 
 
-@functools.partial(jax.jit, static_argnums=(3,))
-def _run(R, W, boxes, shapes):
-    n_pad, t_pad = shapes
-    boxes_shape = boxes.shape
-    CHUNK = _pick_chunk(t_pad)
-    TILE = _pick_tile(n_pad, CHUNK)
-    grid = (n_pad // TILE, t_pad // CHUNK)
-    out_shape = [
-        jax.ShapeDtypeStruct((8, n_pad), jnp.float32),
-        jax.ShapeDtypeStruct((8, n_pad), jnp.int32),
-    ]
-    ray_spec = pl.BlockSpec((8, TILE), lambda i, j: (0, i),
-                            memory_space=pltpu.VMEM)
-    w_spec = pl.BlockSpec((CHUNK, 16), lambda i, j: (j, 0),
-                          memory_space=pltpu.VMEM)
-    # whole box table resident per step (Mosaic forbids (1, 8) blocks);
-    # a few hundred KB of VMEM even at 1M tris
-    box_spec = pl.BlockSpec(boxes_shape, lambda i, j: (0, 0),
-                            memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((8, TILE), lambda i, j: (0, i),
-                            memory_space=pltpu.VMEM)
+def _run(R, W, boxes, chunk, block_rays, num_warps, interpret):
+    n_pad = R.shape[1]
+    n_chunks = boxes.shape[0]
+    row = pl.BlockSpec((block_rays,), lambda i: (i,))
     return pl.pallas_call(
-        functools.partial(_kernel, CHUNK, TILE),
-        grid=grid,
-        in_specs=[ray_spec, w_spec, box_spec],
-        out_specs=[out_spec, out_spec],
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary")),
+        functools.partial(_kernel, n_chunks, chunk),
+        grid=(n_pad // block_rays,),
+        in_specs=[pl.BlockSpec((8, block_rays), lambda i: (0, i)),
+                  pl.BlockSpec(W.shape, lambda i: (0, 0)),
+                  pl.BlockSpec(boxes.shape, lambda i: (0, 0))],
+        out_specs=[row, row, row, row],
+        out_shape=[jax.ShapeDtypeStruct((n_pad,), jnp.float32)] * 3
+        + [jax.ShapeDtypeStruct((n_pad,), jnp.int32)],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps,
+                                                 num_stages=1),
+        interpret=interpret,
+        name="intersect_closest_hit",
     )(R, W, boxes)
 
 
-def intersect_pallas(geom_or_scene, ro, rd, t_lower=None, perm=None,
-                     alive=None):
-    """Closest-hit query - same contract as ops.intersect intersectors.
+def chunk_tables(v0, e1, e2, chunk=CHUNK):
+    """[t_pad, TRI_COLS] triangle table and [n_chunks, 8] chunk boxes
+    (lo xyz, 0, hi xyz, 0). Padded triangles have zero edges (|a| < EPS
+    → miss); padded slots get inverted bounds so they never enable a
+    chunk by themselves."""
+    T = v0.shape[0]
+    t_pad = max(((T + chunk - 1) // chunk) * chunk, chunk)
+    n_chunks = t_pad // chunk
+    W = jnp.pad(jnp.concatenate([v0, e1, e2], axis=1),
+                ((0, t_pad - T), (0, TRI_COLS - 9)))
+    lo = jnp.minimum(jnp.minimum(v0, v0 + e1), v0 + e2)
+    hi = jnp.maximum(jnp.maximum(v0, v0 + e1), v0 + e2)
+    lo = jnp.concatenate([lo, jnp.full((t_pad - T, 3), BIG)], axis=0)
+    hi = jnp.concatenate([hi, jnp.full((t_pad - T, 3), -BIG)], axis=0)
+    # Inflate by EPS: the strict slab test (tn < tf) would cull an exactly
+    # flat box (an axis-aligned quad has lo == hi on one axis). The
+    # reference inflates degenerate AABBs the same way (AABB::Check,
+    # mesh.cpp:32-45); inflation only makes culling conservative.
+    c_lo = jnp.min(lo.reshape(n_chunks, chunk, 3), axis=1) - EPS
+    c_hi = jnp.max(hi.reshape(n_chunks, chunk, 3), axis=1) + EPS
+    z = jnp.zeros((n_chunks, 1), jnp.float32)
+    boxes = jnp.concatenate([c_lo, z, c_hi, z], axis=1)
+    return W, boxes
 
-    Accepts a Scene (uses .geom, and .accel.perm as the locality order when
-    present) or a bare Geometry. ``perm`` overrides the triangle ordering.
-    ``alive`` rides the spare row of the ray block; dead lanes are culled
-    before the pair tests and report a clean miss (intersect.mask_dead
-    contract) - with compaction, trailing dead tiles cost ~nothing.
+
+def intersect_pallas(geom_or_scene, ro, rd, t_lower=None, alive=None,
+                     interpret: bool = False):
+    """Closest-hit query with the ops.intersect contract: returns (hit
+    bool[N], tri_idx i32[N], t f32[N], u f32[N], v f32[N]).
+
+    Accepts a Scene (walks chunks in ``scene.accel.perm`` order when it
+    has a BVH) or a bare Geometry.
     """
+    return _query(geom_or_scene, ro, rd, t_lower, alive, interpret,
+                  CHUNK, BLOCK_RAYS, NUM_WARPS)
+
+
+def _query(geom_or_scene, ro, rd, t_lower, alive, interpret, chunk,
+           block_rays, num_warps):
+    """intersect_pallas with an explicit tiling (powers of two)."""
     geom = getattr(geom_or_scene, "geom", geom_or_scene)
-    if perm is None:
-        accel = getattr(geom_or_scene, "accel", None)
-        if accel is not None:
-            perm = accel.perm
+    accel = getattr(geom_or_scene, "accel", None)
+    perm = None if accel is None else accel.perm
     N = ro.shape[0]
-    T = geom.v0.shape[0]
     if t_lower is None:
         t_lower = jnp.zeros((N,), jnp.float32)
     alive_f = (jnp.ones((N,), jnp.float32) if alive is None
                else alive.astype(jnp.float32))
-
-    # triangle dim lives on sublanes: pad granularity 8, then to CHUNK
-    t_pad = ((T + 7) // 8) * 8
-    CHUNK = _pick_chunk(t_pad)
-    t_pad = ((t_pad + CHUNK - 1) // CHUNK) * CHUNK
-    TILE = _pick_tile(1 << 30, CHUNK)
-    n_pad = ((N + TILE - 1) // TILE) * TILE
-    n_chunks = t_pad // CHUNK
-
+    v0, e1, e2 = geom.v0, geom.e1, geom.e2
     if perm is not None:
-        perm = jnp.asarray(perm, jnp.int32)
-        v0 = geom.v0[perm]
-        e1 = geom.e1[perm]
-        e2 = geom.e2[perm]
-    else:
-        v0, e1, e2 = geom.v0, geom.e1, geom.e2
+        v0, e1, e2 = v0[perm], e1[perm], e2[perm]
+    W, boxes = chunk_tables(v0, e1, e2, chunk)
 
-    # dense [8, n_pad] ray block: rd(3), ro(3), t_lower, alive
-    R = jnp.concatenate([rd.T, ro.T, t_lower[None, :],
-                         alive_f[None, :]], axis=0)
-    R = jnp.pad(R, ((0, 0), (0, n_pad - N)))  # pad lanes: alive row 0 = dead
-
-    # [t_pad, 16] triangle SoA columns: v0(3), e1(3), e2(3), pad. Padded
-    # tris have zero edges -> a = 0 -> |a| < EPS -> miss.
-    tri9 = jnp.concatenate([v0, e1, e2], axis=1)     # [T, 9]
-    W = jnp.pad(tri9, ((0, t_pad - T), (0, 7)))      # [t_pad, 16]
-
-    # chunk AABBs from the (permuted) triangles; padded slots get inverted
-    # boxes so they never enable a chunk by themselves.
-    tri_lo = jnp.minimum(jnp.minimum(v0, v0 + e1), v0 + e2)
-    tri_hi = jnp.maximum(jnp.maximum(v0, v0 + e1), v0 + e2)
-    tri_lo = jnp.concatenate(
-        [tri_lo, jnp.full((t_pad - T, 3), BIG)], axis=0)
-    tri_hi = jnp.concatenate(
-        [tri_hi, jnp.full((t_pad - T, 3), -BIG)], axis=0)
-    chunk_lo = jnp.min(tri_lo.reshape(n_chunks, CHUNK, 3), axis=1)
-    chunk_hi = jnp.max(tri_hi.reshape(n_chunks, CHUNK, 3), axis=1)
-    # Inflate by EPS: the kernels' strict slab test (tn < tf) culls
-    # exactly-flat boxes (a coplanar axis-aligned chunk — ground plane,
-    # quad light — has lo==hi on one axis, so tn==tf). The reference
-    # guards the same case by inflating degenerate AABBs before its
-    # strict test (AABB::Check, mesh.cpp:32-45). Inflation only makes
-    # culling conservative — acceptance is Möller–Trumbore on triangles.
-    # Padded chunks stay inverted (BIG∓EPS), never self-enabling.
-    chunk_lo = chunk_lo - EPS
-    chunk_hi = chunk_hi + EPS
-    boxes = jnp.concatenate(
-        [chunk_lo, jnp.zeros((n_chunks, 1)), chunk_hi,
-         jnp.zeros((n_chunks, 1))], axis=1)          # [n_chunks, 8]
-
-    if n_chunks > LIST_KERNEL_MIN_CHUNKS:
-        # Large scene: candidate-list kernel — near-to-far sorted
-        # candidate walk with early exit, per-chunk box-gated DMA, and
-        # SUB_CHUNK(128)-masked pair blocks inside surviving chunks
-        # (the dense grid is O(tiles x chunks); see intersect_pallas_list).
-        from .intersect_pallas_list import (LIST_TILE, SUB_CHUNK, MAX_SUPER,
-                                            build_tile_lists,
-                                            run_list_kernel)
-        order = None
-        if SORT_RAYS:
-            # scene bbox from the (pad-inert) chunk boxes
-            bbox_lo = jnp.min(chunk_lo, axis=0)
-            bbox_hi = jnp.max(chunk_hi, axis=0)
-            key = _ray_sort_key(ro, rd, alive, bbox_lo, bbox_hi)
-            order = jnp.argsort(key)
-            ro = ro[order]
-            rd = rd[order]
-            t_lower = t_lower[order]
-            alive_f = alive_f[order]
-            if alive is not None:
-                alive = alive[order]
-        if LIST_TILE != TILE:
-            TILE = LIST_TILE
-            n_pad = ((N + TILE - 1) // TILE) * TILE
-            R = jnp.concatenate([rd.T, ro.T, t_lower[None, :],
-                                 alive_f[None, :]], axis=0)
-            R = jnp.pad(R, ((0, 0), (0, n_pad - N)))
-        # sub-boxes at SUB_CHUNK granularity (t_pad is a multiple of
-        # CHUNK, CHUNK a multiple of SUB_CHUNK)
-        n_sub = t_pad // SUB_CHUNK
-        sub_lo = jnp.min(tri_lo.reshape(n_sub, SUB_CHUNK, 3), axis=1) - EPS
-        sub_hi = jnp.max(tri_hi.reshape(n_sub, SUB_CHUNK, 3), axis=1) + EPS
-        subboxes = jnp.concatenate(
-            [sub_lo, jnp.zeros((n_sub, 1)), sub_hi,
-             jnp.zeros((n_sub, 1))], axis=1)         # [n_sub, 8]
-        ro_pad = jnp.pad(ro, ((0, n_pad - N), (0, 0)))
-        rd_pad = jnp.pad(rd, ((0, n_pad - N), (0, 0)),
-                         constant_values=1.0)  # pad rays masked in the cull
-        group = (n_chunks + MAX_SUPER - 1) // MAX_SUPER
-        lists, keys = build_tile_lists(ro_pad, rd_pad, chunk_lo, chunk_hi,
-                                       TILE, group, n_valid=N,
-                                       alive=None if alive is None else alive)
-        # transposed layouts (see intersect_pallas_list docstring):
-        # rays as [n_pad, 8] columns, triangles as [16, t_pad] planes
-        Rt = jnp.concatenate(
-            [rd, ro, t_lower[:, None], alive_f[:, None]], axis=1)
-        Rt = jnp.pad(Rt, ((0, n_pad - N), (0, 0)))
-        Wp = W.T                                     # [16, t_pad]
-        oft, oit = run_list_kernel(Rt, Wp, boxes, subboxes, lists, keys,
-                                   (n_pad, t_pad, CHUNK, TILE))
-        t, u, v = oft[:N, 0], oft[:N, 1], oft[:N, 2]
-        i = oit[:N, 0]
-        if order is not None:
-            # scatter results back to the caller's lane order
-            def unsort(x):
-                return jnp.zeros_like(x).at[order].set(x)
-            t, u, v, i = unsort(t), unsort(u), unsort(v), unsort(i)
-    else:
-        of, oi = _run(R, W, boxes, (n_pad, t_pad))
-        t = of[0, :N]
-        u = of[1, :N]
-        v = of[2, :N]
-        i = oi[0, :N]
-    hit = (t < BIG) & (i < T)
-    i_safe = jnp.where(hit, i, 0)
+    n_pad = ((N + block_rays - 1) // block_rays) * block_rays
+    R = jnp.stack([rd[:, 0], rd[:, 1], rd[:, 2], ro[:, 0], ro[:, 1],
+                   ro[:, 2], t_lower, alive_f])
+    R = jnp.pad(R, ((0, 0), (0, n_pad - N)))    # pad lanes: alive 0 = dead
+    t, u, v, i = _run(R, W, boxes, chunk, block_rays, num_warps, interpret)
+    t, u, v, i = t[:N], u[:N], v[:N], i[:N]
+    hit = t < BIG
+    i = jnp.where(hit, i, 0)
     if perm is not None:
-        i_safe = perm[i_safe]                        # back to scene ids
-    return hit, jnp.where(hit, i_safe, 0), jnp.where(hit, t, 0.0), u, v
+        i = perm[i]                                  # back to scene ids
+    z = jnp.float32(0.0)
+    return (hit, jnp.where(hit, i, 0), jnp.where(hit, t, z),
+            jnp.where(hit, u, z), jnp.where(hit, v, z))

@@ -1,5 +1,5 @@
 """Live-lane wavefront compaction (SURVEY §7: "wavefront compaction
-replaces per-pixel OpenMP loops"; VERDICT r3 weak #5).
+replaces per-pixel OpenMP loops").
 
 After a few bounce segments a growing fraction of lanes is dead (miss /
 Russian roulette / iter budget) but still pays the full intersect+shade
@@ -7,9 +7,8 @@ cost: the flagship's live-per-segment profile decays 100% → 60% before the
 all-dead tail, and deep/translucent workloads (segment cap 2·depth+2 or
 RR-derived, engine/config.suggest_max_segments) spend most segments under
 50% occupancy. Compaction reorders lanes so the live ones are a contiguous
-prefix; the Pallas intersectors then skip whole ray tiles past the live
-count (`n_live` tile gate), and on deep workloads most of the query cost
-vanishes.
+prefix; the Pallas intersector then skips whole ray blocks past the live
+count (an all-dead block walks no chunks).
 
 Keyed RNG makes this exact: every random draw is keyed by (seed,
 state.pixel, sample, stream, slot), all of which travel with the lane —
@@ -18,17 +17,17 @@ uncompacted one (tests/test_compaction.py pins this). Under one
 whole-render jit, XLA's fusion choices on the structurally different
 graph may shift lanes by ULPs, exactly as changing unroll/remat does.
 
-TPU cost model: the state is ~17 [N]-rows laid out lanes-minor, so the
-permutation is data movement along the lane dimension. Two formulations:
+The state is ~17 [N]-rows, so the permutation is pure data movement.
+Two formulations:
 
   * "sort": one stable variadic `lax.sort` keyed by the dead flag
     co-sorts every state column in a single fused op;
   * "gather": compute the permutation with one small sort over (flag,
     iota), then `x[perm]` every column (XLA fuses the gathers).
 
-Both are shape-static and jit-safe. Which wins is chip-dependent; the
-integrator takes cfg.compact_wavefront ∈ {"off", "auto", "sort",
-"gather"} and benchmarks/profile_compaction.py measures on-chip.
+Both are shape-static and jit-safe. Which wins, and whether compaction
+pays at all on the GPU, is not measured yet (ROADMAP S2/S4); the
+integrator takes cfg.compact_wavefront ∈ {"off", "sort", "gather"}.
 
 Integer payloads ride the sort as their own operands (no float packing),
 so pixel ids are exact at any resolution.
@@ -52,14 +51,10 @@ def _spread3(x):
 def coherence_key(state, scene):
     """i32 lane key: dead lanes last; live lanes by (direction octant,
     origin Morton). Sorting the wavefront by this key each segment packs
-    dead lanes into all-dead tiles (candidate count 0 in the list
-    kernel) AND restores spatial coherence for bounce rays — each ray
-    tile's candidate-chunk union shrinks with its footprint. Measured on
-    the 50k-tri rung-3 scene: unsorted segment-1..3 bounce queries cost
-    164-255 ms; (octant, Morton)-sorted rays cut them 1.5-3x and a
-    92%-dead segment-3 query 3x (206 -> 66 ms in-query; the per-segment
-    state sort amortizes the key sort across the bounce + shadow +
-    opacity queries of the segment).
+    dead lanes into all-dead ray blocks (which the Pallas kernel skips)
+    AND restores spatial coherence for bounce rays, so a block's rays
+    enable fewer triangle chunks. The per-segment state sort amortizes
+    across the bounce + shadow + opacity queries of the segment.
 
     The scene bbox reductions are loop-invariant (scene is constant
     across segments); XLA hoists them out of the segment scan.

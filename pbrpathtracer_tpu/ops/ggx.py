@@ -6,7 +6,7 @@ roughness gradient is hit-flip noise (the cone boundary is a step in the
 sample). ``RenderConfig.brdf="ggx"`` replaces the *opaque specular lobe*
 with NDF-importance-sampled GGX (Walter et al. 2007, "Microfacet Models
 for Refraction"): smooth in roughness, so inverse rendering can recover
-roughness from pixels (VERDICT r2 item 7; BASELINE config 2 glossy/metal
+roughness from pixels (BASELINE config 2 glossy/metal
 spheres).
 
 Estimator: sample the half vector h ∝ D(h)·cos(h), reflect. With

@@ -21,23 +21,19 @@ from .intersect import intersect_classic, intersect_matmul
 from .texture import sample_texture
 
 
-def _resolve_intersector_name(scene: Scene, cfg) -> str:
-    """ "auto" → BVH when the scene has one and is past the threshold, else
-    the fused Pallas kernel on TPU / the MXU matmul formulation elsewhere."""
+def _resolve_intersector_name(scene: Scene, cfg, backend=None) -> str:
+    """ "auto" → the BVH walk when the scene has one and is past
+    bvh_threshold, else the fused Pallas kernel on the GPU and the dense
+    matmul formulation on other backends (the kernel compiles only for
+    the GPU). ``backend`` defaults to jax.default_backend()."""
     name = cfg.intersector
-    if name == "auto":
-        on_tpu = cfg.use_pallas and jax.default_backend() == "tpu"
-        if on_tpu:
-            # chunk-culled pallas (uses scene.accel.perm for locality when
-            # present) beats the gather-bound per-lane BVH walk on TPU at
-            # every measured scene size
-            name = "pallas"
-        elif (scene.accel is not None
-              and scene.num_triangles > cfg.bvh_threshold):
-            name = "bvh"
-        else:
-            name = "matmul"
-    return name
+    if name != "auto":
+        return name
+    if scene.accel is not None and scene.num_triangles > cfg.bvh_threshold:
+        return "bvh"
+    if (backend or jax.default_backend()) == "gpu":
+        return "pallas"
+    return "matmul"
 
 
 def _select_intersector(scene: Scene, cfg):
@@ -53,7 +49,8 @@ def _select_intersector(scene: Scene, cfg):
             s.geom, ro, rd, tl, alive=alive)
     if name == "pallas":
         from ..kernels.intersect_pallas import intersect_pallas
-        return intersect_pallas
+        return lambda s, ro, rd, tl, alive=None: intersect_pallas(
+            s, ro, rd, tl, alive=alive)
     if name == "bvh":
         from ..accel.traverse import intersect_bvh
         if scene.accel is None:
@@ -81,8 +78,8 @@ def closest_hit(scene: Scene, cfg, ro, rd, seed, pixel, sample_idx, stream,
     ``stream`` is the bounce-segment RNG stream; shadow rays pass
     ``slot_base=SLOT_NEE_OPACITY_BASE``. ``intersect_fn(scene, ro, rd,
     t_lower, alive=None)`` defaults to the cfg-selected intersector.
-    ``alive`` masks dead lanes to a clean miss and lets the TPU kernels
-    skip their work (live-lane results are bit-identical either way).
+    ``alive`` masks dead lanes to a clean miss and lets the Pallas kernel
+    and the BVH walk skip their work (live-lane results are bit-identical either way).
     """
     if intersect_fn is None:
         intersect_fn = _select_intersector(scene, cfg)

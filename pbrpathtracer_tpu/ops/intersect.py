@@ -1,17 +1,17 @@
-"""Ray-triangle intersection, TPU-first.
+"""Ray-triangle intersection: the plain-JAX closest-hit queries.
 
 The reference walks a pointer-based BVH recursively and runs scalar
-Möller–Trumbore per leaf (pathtracer.cpp:373-492). Neither recursion nor
-per-ray divergence maps to the TPU, so this module provides two dense
-formulations:
+Möller–Trumbore per leaf (pathtracer.cpp:373-492). This module provides two
+dense formulations over (ray, triangle) tiles:
 
-1. ``intersect_classic`` — vectorized Möller–Trumbore over (ray, tri) tiles,
-   elementwise on the VPU. Reference-faithful operation order; used by parity
-   tests and as the small-scene fallback.
+1. ``intersect_classic`` — vectorized Möller–Trumbore, elementwise.
+   Reference-faithful operation order; the parity baseline and the
+   reference the Pallas kernel (kernels/intersect_pallas.py) is tested
+   against.
 
-2. ``intersect_matmul`` — the TPU-native reformulation: every Möller–Trumbore
-   determinant is *bilinear* in (ray features) × (triangle features), so the
-   four quantities (det a, u·a, v·a, t·a) for all N×T pairs are ONE matmul
+2. ``intersect_matmul`` — every Möller–Trumbore determinant is *bilinear*
+   in (ray features) × (triangle features), so the four quantities
+   (det a, u·a, v·a, t·a) for all N×T pairs are ONE matmul
 
        [N, 10] @ [10, 4T]  →  [N, 4, T]
 
@@ -23,12 +23,15 @@ formulations:
        v·a   = −(ro×rd)·e1 + rd·(e1×v0)
        t·a   = ro·(e1×e2) − v0·(e1×e2)
 
-   This rides the MXU systolic array instead of the VPU and needs no gather,
-   no traversal stack and no divergence. Hit tests divide by ``a`` afterward
-   (sign-correct for both u,v,t since they share the 1/a factor).
+   It needs no gather, no traversal stack and no divergence. Hit tests
+   divide by ``a`` afterward (sign-correct for both u,v,t since they share
+   the 1/a factor). The product runs at ``Precision.HIGHEST``: in TF32 or
+   bf16 the hit distances would lose ~1e-3 of t.
 
 Both are chunked over triangles with a `lax.scan` running-min so peak memory
-is O(N × chunk). Large scenes route to the BVH wavefront in ``accel/``.
+is O(N × chunk). On the GPU, ``ops/hit.py`` routes small scenes to the Pallas
+kernel and large ones to the BVH walk in ``accel/``; these two remain the
+route on other backends and the references for tests.
 
 Acceptance tests (match pathtracer.cpp:387-408): |a| ≥ EPS, 0 ≤ u ≤ 1,
 v ≥ 0, u + v ≤ 1, t > EPS. ``t_lower`` additionally excludes hits at or
@@ -56,7 +59,7 @@ CHUNK_ELEM_BUDGET = 64 * 1024 * 1024
 
 def _auto_chunk(n_rays: int, n_tris: int, requested: int) -> int:
     """Pick a triangle-chunk size: fit the [N, 4*chunk] intermediate inside
-    the budget, round to the TPU lane width, never exceed `requested`."""
+    the budget, round to a multiple of 128, never exceed `requested`."""
     fit = max(CHUNK_ELEM_BUDGET // max(4 * n_rays, 1), 128)
     chunk = min(requested, fit)
     chunk = max(128, (chunk // 128) * 128)
@@ -136,8 +139,8 @@ def _running_best(carry, t_masked, u, v, base_idx):
 def mask_dead(alive, hit, idx, t, u, v):
     """Dead-lane contract shared by every intersector: lanes with
     ``alive == False`` report a clean miss (hit False, idx/t/u/v zero) —
-    identical to what the Pallas kernels' alive-gated cull produces from
-    their initialized accumulators. Live lanes are untouched (bit-exact).
+    identical to what the Pallas kernel's alive-gated cull produces from
+    its initialized accumulators. Live lanes are untouched (bit-exact).
     """
     if alive is None:
         return hit, idx, t, u, v
@@ -148,7 +151,7 @@ def mask_dead(alive, hit, idx, t, u, v):
 
 def intersect_matmul(geom: Geometry, ro, rd, t_lower=None, chunk: int = 2048,
                      tri_w: jnp.ndarray | None = None, alive=None):
-    """Closest-hit query via the MXU bilinear formulation.
+    """Closest-hit query via the bilinear matmul formulation.
 
     Returns (hit bool[N], tri_idx i32[N], t f32[N], u f32[N], v f32[N]).
     ``alive`` optionally masks lanes to a clean miss (see mask_dead).
@@ -169,8 +172,8 @@ def intersect_matmul(geom: Geometry, ro, rd, t_lower=None, chunk: int = 2048,
 
     def body(carry, xs):
         Wc, base = xs
-        # HIGHEST precision: on TPU the MXU's default bf16 passes lose ~1e-3
-        # of t — geometrically catastrophic. bf16x6 (≈ f32) keeps hit
+        # HIGHEST precision: a reduced-precision product (bf16 or TF32)
+        # loses ~1e-3 of t — geometrically catastrophic. Full f32 keeps hit
         # distances within f32 noise of the classic formulation.
         out = jnp.dot(R, Wc.reshape(10, 4 * chunk),
                       preferred_element_type=jnp.float32,
@@ -191,7 +194,8 @@ def intersect_matmul(geom: Geometry, ro, rd, t_lower=None, chunk: int = 2048,
 def intersect_classic(geom: Geometry, ro, rd, t_lower=None, chunk: int = 2048,
                       alive=None):
     """Closest-hit query via vectorized classic Möller–Trumbore
-    (pathtracer.cpp:373-409 operation order). VPU-only; parity baseline."""
+    (pathtracer.cpp:373-409 operation order). Elementwise; parity
+    baseline."""
     N = ro.shape[0]
     if t_lower is None:
         t_lower = jnp.zeros((N,), jnp.float32)

@@ -3,7 +3,7 @@
 The reference previews the scene by OpenGL rasterization with a second
 render target carrying (objectId+1, elementId+1) for mouse picking
 (Display, main.cpp:2796-2977; fPrev pickcolor, shaders.h:168; readback
-main.cpp:3239-3247). The TPU equivalent is a ray cast over the same
+main.cpp:3239-3247). The headless equivalent is a ray cast over the same
 camera: flat-shaded color with a headlight term, and an exact
 (object_id, element_id) id-buffer — same information the GL pick pass
 provides, computed in one jit.

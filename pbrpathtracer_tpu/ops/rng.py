@@ -13,7 +13,7 @@ render has a fixed key, independent of evaluation order, so
 * pause/resume and re-sharding are seed-exact.
 
 Generator: ``pcg4d`` (Jarzynski & Olano, "Hash Functions for GPU Rendering",
-JCGT 2020) — 4-word LCG + cross-multiply mix; high-quality, cheap on the TPU VPU
+JCGT 2020) — 4-word LCG + cross-multiply mix; high-quality and cheap
 (integer multiply-add + shifts only).
 """
 
@@ -115,10 +115,10 @@ def rand_slots4(seed, pixel, sample, stream, group):
     """Four uniforms for slots (4g, 4g+1, 4g+2, 4g+3) from ONE pcg4d eval.
 
     pcg4d's four output words are independently usable (Jarzynski & Olano
-    §3.4), so each hash serves a whole slot *group*. On the TPU VPU — where
-    u32 multiplies are emulated — this quarters the RNG cost of a bounce
-    segment (slots 4-15 are exactly groups 1-3). The slot layout above is
-    grouped so that draws consumed together share a group.
+    §3.4), so each hash serves a whole slot *group*, which quarters the
+    RNG cost of a bounce segment (slots 4-15 are exactly groups 1-3). The
+    slot layout above is grouped so that draws consumed together share a
+    group.
     """
     with np.errstate(over="ignore"):
         ctr = (_u32(stream) * np.uint32(SLOTS_PER_STREAM)

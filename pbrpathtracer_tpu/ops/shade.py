@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
 from ..scene.scene import Scene
 from ..utils.constants import (
@@ -37,6 +36,7 @@ from ..utils.constants import (
     TEX_DIFFUSE, TEX_NORMAL, TEX_EMISSIVE, TEX_ROUGHNESS, TEX_METALLIC,
     NO_TEXTURE,
 )
+from ..utils.pytree import pytree_dataclass
 from . import rng, shadepack as sp
 from .linalg import dot, reflect, safe_normalize, safe_sqrt
 from .texture import sample_texture
@@ -44,7 +44,7 @@ from .texture import sample_texture
 TWO_PI = np.float32(2.0 * np.pi)
 
 
-@struct.dataclass
+@pytree_dataclass
 class WavefrontState:
     """Per-lane path state carried across bounce segments."""
 
@@ -117,7 +117,7 @@ def direct_illumination(scene: Scene, p, n, diffuse, seed, pixel, sample_idx,
     else:
         u_pick, u_su, sv = draws
     lid = jnp.clip(jnp.floor(u_pick * L).astype(jnp.int32), 0, L - 1)
-    # ONE fields-on-sublanes fetch for all light data (MXU both ways)
+    # ONE fetch for all light data (shadepack.gather_fields)
     lv0, le1, le2, lcolor, ltri_f = sp.gather_fields(
         sp.build_light_pack(scene), lid, sp.LIGHT_FIELDS)
     ltri = ltri_f.astype(jnp.int32)
@@ -137,7 +137,8 @@ def direct_illumination(scene: Scene, p, n, diffuse, seed, pixel, sample_idx,
 
     # only lanes whose NEE contribution survives the outer mask AND face
     # the sampled light need the shadow query (pathtracer.cpp:517 rejects
-    # back-facing before casting) — the rest skip it in the TPU kernels
+    # back-facing before casting) — the rest skip it in the Pallas kernel
+    # and the BVH walk
     sh_alive = None if alive is None else (alive & facing)
     sh_hit, sh_idx, _, _, _ = shadow_trace(p, l, sh_alive)
     visible = ~(sh_hit & (sh_idx != ltri))  # no-hit counts as visible (:522-526)
@@ -185,8 +186,8 @@ def _winner_straight_through(ro, rd, v0, e1, e2, hit, t, bu, bv):
     misses and degenerate denominators keep zero derivative (their values
     are frozen query outputs either way). The graft is a custom-VJP
     identity on the query values, so the whole recompute vanishes from
-    forward-only graphs (r3 shipped it as ``orig + (rec - stop_grad(rec))``,
-    which XLA cannot DCE — the measured ~2 ms fwd regression of BENCH_r03)."""
+    forward-only graphs (``orig + (rec - stop_grad(rec))`` would not: XLA
+    cannot DCE it)."""
     h = jnp.cross(rd, e2)
     a = jnp.sum(e1 * h, axis=-1)
     ok = hit & (jnp.abs(a) >= EPS)
@@ -220,9 +221,8 @@ def shade_segment(scene: Scene, cfg, state: WavefrontState,
     active = state.alive & hit
     rd = state.rd
 
-    # ONE fields-on-sublanes fetch serves every triangle+material
-    # attribute (shadepack.gather_fields): forward and backward are both
-    # MXU one-hot matmuls, and fields come out as free sublane slices.
+    # ONE fetch serves every triangle+material attribute
+    # (shadepack.gather_fields); fields come out as slices of the block.
     (f_normal, f_n0, f_n1, f_n2, f_uv0, f_uv1, f_uv2, f_smooth,
      f_diffuse, f_specular, f_emissive, f_emiss_int, f_roughness,
      f_reflectiveness, f_transl, f_ior, f_mtype, f_texidx,
@@ -368,15 +368,15 @@ def shade_segment(scene: Scene, cfg, state: WavefrontState,
     spec_branch = op_spec | tr_reflect
     new_dir = jnp.where(spec_branch[:, None], spec_dir,
                         jnp.where(tr_refract[:, None], refr_dir, uniform_dir))
-    tput_factor = jnp.where(spec_branch[:, None], f_specular, diffuse)
+    throughput_factor = jnp.where(spec_branch[:, None], f_specular, diffuse)
     if spec_weight is not None:
-        tput_factor = tput_factor * spec_weight[:, None]
+        throughput_factor = throughput_factor * spec_weight[:, None]
 
     emitted = emiss * f_emiss_int[:, None]
     contribution = emitted + nee
     radiance = state.radiance + jnp.where(active[:, None],
                                           throughput * contribution, 0.0)
-    throughput = jnp.where(active[:, None], throughput * tput_factor,
+    throughput = jnp.where(active[:, None], throughput * throughput_factor,
                            throughput)
 
     # iter refund for specular/refraction (:625, :701, :711)

@@ -1,13 +1,10 @@
-"""Packed per-triangle shading tables — the TPU gather-fusion layer.
+"""Packed per-triangle shading tables — the gather-fusion layer.
 
 Shading one wavefront segment needs ~26 per-lane attribute lookups: nine
 triangle arrays (normals, vertex normals, UVs, smoothing), ten material
-fields through ``mat_id``, and seven more for NEE light sampling. On TPU
-each *distinct* gather costs roughly as much as gathering a 64-wide row
-(the hardware fetches by row), so 26 narrow gathers run ~20x slower than
-one wide one.
-
-This module folds everything shading reads into two precomputed tables:
+fields through ``mat_id``, and seven more for NEE light sampling. This
+module folds everything shading reads into two precomputed tables, so a
+segment does one row fetch per table instead of 26 narrow gathers:
 
   * ``tri_pack`` f32[T, 55] — triangle attributes with the material row
     *pre-joined* per triangle (materials[mat_id] is itself a gather, done
@@ -25,6 +22,13 @@ as exact small floats; flags as 0.0/1.0.
 Replaces the scattered per-field gathers that mirrored the reference's
 per-hit pointer chasing (pathtracer.cpp:549-584) with one row fetch.
 
+For tables of at most MATMUL_SCATTER_MAX_T rows, gathers and their
+backward scatter-adds are one-hot matrix products. That layout was chosen
+for the machine the renderer was first built on; whether it beats a plain
+``table[idx]`` gather on the GPU is an open measurement (ROADMAP). The
+products run at ``Precision.HIGHEST``: in TF32 a one-hot product would
+round every gathered float to a 10-bit mantissa.
+
 CONSTRAINT: gather_rows/gather_fields/unpack use ``jax.custom_vjp``, so the
 shading path is reverse-mode only — ``jax.jvp``/``jacfwd`` through it raise.
 All framework gradients (fit, grad_render, FD checks) are reverse-mode.
@@ -35,31 +39,17 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Scatter-add (the VJP of a row gather) is serialized on TPU — measured
-# ~90 ms of a 165 ms fwd+bwd pass for the Cornell workload. For small
-# tables the same reduction is a one-hot matmul riding the MXU
-# (cot_table = onehot(idx)^T @ cot_rows, contraction over the big N dim =
-# full systolic utilization): ~0.2 ms. The onehot is materialized [N, T]
-# f32, so gate by table height; large tables keep the native scatter.
+# Tables up to this height gather and scatter through one-hot products
+# (the one-hot is [N, T] f32); taller tables use the native gather.
 MATMUL_SCATTER_MAX_T = 256
-
-# Route small-table gathers through the Pallas pack-gather kernel
-# (kernels/packgather_pallas.py) instead of the XLA one-hot matmul on TPU.
-# Default OFF: an interleaved on-chip A/B at the 512² Cornell flagship
-# measured the kernel ~0.6 ms SLOWER both directions (fwd 8.89 vs 8.26 ms,
-# fwd+bwd 20.90 vs 20.07 ms) — XLA's fused one-hot dot never materializes
-# the [T, N] one-hot in HBM either, and the custom-call boundary costs
-# fusion opportunities. Kept as an A/B'able alternative for large-table
-# regimes; tests/test_packgather.py pins its correctness.
-USE_PALLAS_PACKGATHER = False
 
 
 def gather_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """``table[idx]`` with a TPU-fast backward for small tables.
+    """``table[idx]`` with a one-hot-product backward for small tables.
 
     Forward is a plain row gather. Backward for T <= MATMUL_SCATTER_MAX_T
-    computes the row-cotangent reduction as onehot^T @ cot on the MXU
-    (f32-exact via HIGHEST) instead of a serialized scatter-add.
+    computes the row-cotangent reduction as onehot^T @ cot (f32-exact via
+    HIGHEST) instead of a scatter-add.
     """
     T = table.shape[0]
     if T > MATMUL_SCATTER_MAX_T:
@@ -83,67 +73,31 @@ def gather_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     return g(table, idx)
 
 
-def _split_sublane(rows: jnp.ndarray, fields) -> tuple:
-    """Slice a fields-on-sublanes [W, N] block into per-field arrays.
-
-    Slices come back as [N, w] (a metadata-only transpose: XLA lays out
-    small-minor arrays fields-on-sublanes anyway); int fields as [N]."""
+def _split_fields(rows: jnp.ndarray, fields) -> tuple:
+    """Slice a fields-major [W, N] block into per-field arrays: slices come
+    back as [N, w], int fields as [N]."""
     return tuple(rows[s].T if isinstance(s, slice) else rows[s]
                  for s in fields)
 
 
-def _split_concat_vjp(rows: jnp.ndarray, fields) -> tuple:
-    """_split_sublane with the exact one-concatenate backward (the fields
-    are ordered, disjoint sublane slices covering the row block)."""
-    fields = tuple(fields)
-
-    @jax.custom_vjp
-    def f(r):
-        return _split_sublane(r, fields)
-
-    def fwd(r):
-        return f(r), None
-
-    def bwd(_, cots):
-        parts = [c[None, :] if c.ndim == 1 else c.T for c in cots]
-        return (jnp.concatenate(parts, axis=0),)
-
-    f.defvjp(fwd, bwd)
-    return f(rows)
-
-
 def gather_fields(table: jnp.ndarray, idx: jnp.ndarray, fields) -> tuple:
-    """Fetch per-lane shading attributes: ``split(table[idx], fields)``
-    with a TPU-native data layout.
+    """Fetch per-lane shading attributes: ``split(table[idx], fields)``.
 
-    A [N, W] gathered row block is poison on TPU: W (≤TRI_PACK_WIDTH) pads
-    to the 128-lane tile, and every per-field column slice re-reads whole lane
-    tiles — ~3.4 GB of HBM traffic per shade segment, measured. Instead
-    the rows are produced *transposed* as [W, N] (fields on sublanes,
-    rays on lanes) by a one-hot matmul on the MXU:
+    For small tables the rows are produced transposed as [W, N] by a
+    one-hot product
 
         rows = table^T [W, T] @ onehot(idx) [T, N]
 
-    so each field is a contiguous sublane slice and the whole segment
-    reads the 50 MB block once. The backward is the mirrored matmul
-    (cot_rows @ onehot^T), contracting over N at full systolic
-    utilization. f32-exact: the one-hot selects exactly one column and
-    Precision.HIGHEST reconstructs full f32. Tables taller than
-    MATMUL_SCATTER_MAX_T fall back to the native gather + slice path.
+    so each field is a contiguous slice of the block. The backward is the
+    mirrored product (cot_rows @ onehot^T). f32-exact: the one-hot selects
+    exactly one column and Precision.HIGHEST keeps full f32. Tables taller
+    than MATMUL_SCATTER_MAX_T use the native gather + slice path.
     """
     T = table.shape[0]
     if T > MATMUL_SCATTER_MAX_T:
         return unpack(gather_rows(table, idx), fields)
 
     fields = tuple(fields)
-
-    if USE_PALLAS_PACKGATHER and jax.default_backend() == "tpu":
-        # Pallas pack-gather: the one-hot lives in VMEM only (the XLA
-        # matmul below materializes it as an f32[T, N] HBM buffer per
-        # product — the largest avoidable HBM stream of the fwd+bwd step;
-        # see kernels/packgather_pallas.py).
-        from ..kernels.packgather_pallas import gather_rows_t
-        return _split_concat_vjp(gather_rows_t(table, idx), fields)
 
     def onehot(i):
         return (jnp.arange(T, dtype=i.dtype)[:, None]
@@ -154,7 +108,7 @@ def gather_fields(table: jnp.ndarray, idx: jnp.ndarray, fields) -> tuple:
         rows = jnp.dot(tab.T, onehot(i),
                        preferred_element_type=jnp.float32,
                        precision=jax.lax.Precision.HIGHEST)
-        return _split_sublane(rows, fields)
+        return _split_fields(rows, fields)
 
     def fwd(tab, i):
         return g(tab, i), i
@@ -219,9 +173,8 @@ def unpack(row: jnp.ndarray, fields) -> tuple:
     that is ONE concatenate.
 
     Autodiff's reverse of k slices is k pad+add passes over the full
-    [N, W] cotangent — measured ~6 ms per segment for the 20-field tri
-    pack. The fields are disjoint slices covering the row, so the exact
-    VJP is a single concatenation of the field cotangents.
+    [N, W] cotangent. The fields are disjoint slices covering the row, so
+    the exact VJP is a single concatenation of the field cotangents.
 
     ``fields`` is a list of (slice | int); ints yield [N] arrays.
     """
@@ -244,7 +197,7 @@ def unpack(row: jnp.ndarray, fields) -> tuple:
 def build_tri_pack(scene) -> jnp.ndarray:
     """f32[T, 55] joined triangle + material shading table."""
     g, m = scene.geom, scene.materials
-    # Integer ids ride as f32 sublanes — exact only below 2^24.
+    # Integer ids ride as f32 columns — exact only below 2^24.
     assert g.v0.shape[0] < 2 ** 24, "tri ids stored as f32 in the pack"
     assert m.tex_index.shape[0] < 2 ** 24, "texture ids stored as f32"
     mid = g.mat_id

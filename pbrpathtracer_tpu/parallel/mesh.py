@@ -1,14 +1,14 @@
 """Device-mesh helpers.
 
 Parallelism model (SURVEY.md §2.2): the reference's only data parallelism is
-OpenMP rows over pixels (pathtracer.cpp:768-776). TPU-native equivalent: the
-(pixel × sample) ray wavefront is sharded over a 1-D ``rays`` mesh axis —
-across chips and hosts — while the scene (triangles, BVH, materials,
-textures) is replicated per device and parameter gradients are
-all-reduced (`psum`) over the same axis. Rays are embarrassingly parallel,
-so this "sequence-parallel" analogue needs no ring/all-to-all; the only
-collectives are the gradient psum and the final host-0 image gather, both of
-which XLA compiles onto ICI.
+OpenMP rows over pixels (pathtracer.cpp:768-776). Here the (pixel × sample)
+ray wavefront is sharded over a 1-D ``rays`` mesh axis — across cards and
+hosts — while the scene (triangles, BVH, materials, textures) is
+replicated per device and parameter gradients are all-reduced (`psum`)
+over the same axis. Rays are embarrassingly parallel, so this needs no
+ring/all-to-all; the only collectives are the gradient psum and the final
+host-0 image gather. Every card reaches every other at the same rate over
+NVLink, so the mesh is a flat list of devices.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ def ray_sharding(mesh: Mesh) -> NamedSharding:
     For the 1-D ``rays`` mesh this is P("rays"); for the multi-host
     ("host", "device") mesh (dist/multihost.py) the pixel dimension is
     sharded over both axes so each host computes a contiguous stripe and
-    each of its chips a sub-stripe — shard boundaries align with hosts,
-    keeping the image assembly a pure DCN gather with no ICI reshuffle."""
+    each of its cards a sub-stripe — shard boundaries align with hosts,
+    keeping the image assembly a pure gather with no reshuffle."""
     return NamedSharding(mesh, P(tuple(mesh.axis_names)))
 
 

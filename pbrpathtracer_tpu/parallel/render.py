@@ -13,9 +13,8 @@ reductions INSIDE the backward segment scan — measured on the compiled
 HLO: a tuple all-reduce of four texture-grad f32[2,512,512,4] buffers,
 the tri-pack and light-pack cotangents EVERY segment iteration, plus a
 forward dead-skip predicate all-reduce per segment — orders of magnitude
-more collective traffic than the one psum the DP-over-rays layout needs
-(and what utils/scaling.py models). shard_map pins the program to the
-intended schedule.
+more collective traffic than the one psum the DP-over-rays layout needs.
+shard_map pins the program to the intended schedule.
 """
 
 from __future__ import annotations
@@ -35,9 +34,9 @@ _SHARDED_RENDER_CACHE: dict = {}
 
 
 def _sharded_render_fn(mesh, cfg):
-    """Jitted sharded render step, memoized per (mesh, cfg): repeated /
-    chunked calls (high-spp dispatch loops) reuse one compile — seed and
-    sample_start enter as traced arguments."""
+    """Jitted sharded render step, memoized per (mesh, cfg): repeated
+    calls reuse one compile — seed and sample_start enter as traced
+    arguments."""
     key = (mesh, cfg)
     fn = _SHARDED_RENDER_CACHE.get(key)
     if fn is not None:
@@ -54,11 +53,10 @@ def _sharded_render_fn(mesh, cfg):
         acc, _ = jax.lax.scan(body, acc, ks)
         return acc / jnp.float32(cfg.spp)
 
-    from jax.experimental.shard_map import shard_map
     spec = P(tuple(mesh.axis_names))
-    fn = jax.jit(shard_map(local_render, mesh=mesh,
+    fn = jax.jit(jax.shard_map(local_render, mesh=mesh,
                            in_specs=(P(), P(), spec, P(), P()),
-                           out_specs=spec, check_rep=False))
+                           out_specs=spec, check_vma=False))
     _SHARDED_RENDER_CACHE[key] = fn
     return fn
 
@@ -69,9 +67,9 @@ def render_sharded(scene: Scene, camera: Camera, cfg, mesh=None, seed=None,
 
     Returns f32[H, W, 3] mean radiance (fully addressable on host).
     ``sample_start`` offsets the absolute sample counter so callers can
-    chunk a high-spp render into multiple watchdog-safe dispatches and
-    average the results — the keyed RNG makes chunked accumulation
-    bit-identical to one monolithic pass (engine/session.py semantics).
+    split a high-spp render into several calls and average the results —
+    the keyed RNG makes split accumulation bit-identical to one pass
+    (engine/session.py semantics).
     """
     if mesh is None:
         mesh = make_mesh()
@@ -79,11 +77,10 @@ def render_sharded(scene: Scene, camera: Camera, cfg, mesh=None, seed=None,
     n_pix = cfg.width * cfg.height
     n_pad = pad_to_devices(n_pix, n_dev)
 
-    order = cfg.resolved_pixel_order(scene)
+    order = cfg.pixel_order
     if order == "block":
-        # compact-tile lane layout (ops/integrator.block_pixel_order):
-        # the list kernel's per-tile candidate sets shrink with the
-        # tile's image footprint; undone by the scatter below
+        # compact-tile lane layout (ops/integrator.block_pixel_order);
+        # undone by the scatter below
         from ..ops.integrator import block_pixel_order
         base = jnp.asarray(block_pixel_order(cfg.width, cfg.height))
     else:
@@ -122,13 +119,13 @@ def make_train_step_overlapped(scene_template: Scene, camera_template: Camera,
         sample's gradient — each body psums sample k−1's grads while
         computing sample k's forward+backward, which have no data
         dependence on that psum. XLA's async collectives (all-reduce
-        start/done pairs on TPU) can therefore run sample k's entire
-        fwd+bwd under the all-reduce of sample k−1.
+        start/done pairs) can therefore run sample k's entire fwd+bwd
+        under the all-reduce of sample k−1.
 
     Cost: one extra forward pass (pass 2's VJP re-runs each sample's
     forward instead of stashing spp× residuals). Worth it exactly when
-    psum latency is a visible fraction of the step — cross-host (DCN)
-    fits, MB-scale texture grads. Gradients equal make_train_step's up to
+    psum latency is a visible fraction of the step — cross-host fits,
+    MB-scale texture grads. Gradients equal make_train_step's up to
     float summation order (per-sample partials accumulate forward here,
     reverse-of-scan there); tests/test_parallel.py pins allclose.
     """
@@ -194,15 +191,14 @@ def make_train_step_overlapped(scene_template: Scene, camera_template: Camera,
         params = clip_params(params)
         return params, opt_state, loss
 
-    from jax.experimental.shard_map import shard_map
     P_ray = P(axes)
     rep_spec = P()
-    step = jax.jit(shard_map(
+    step = jax.jit(jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(rep_spec, rep_spec, rep_spec, rep_spec, P_ray, P_ray,
                   rep_spec),
         out_specs=(rep_spec, rep_spec, rep_spec),
-        check_rep=False))
+        check_vma=False))
     return step
 
 
@@ -250,13 +246,12 @@ def make_train_step(scene_template: Scene, camera_template: Camera, cfg,
         params = clip_params(params)
         return params, opt_state, loss
 
-    from jax.experimental.shard_map import shard_map
     pix_spec = P(axes)
     rep_spec = P()
-    train_step = jax.jit(shard_map(
+    train_step = jax.jit(jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(rep_spec, rep_spec, rep_spec, rep_spec, pix_spec,
                   pix_spec, rep_spec),
         out_specs=(rep_spec, rep_spec, rep_spec),
-        check_rep=False))
+        check_vma=False))
     return train_step

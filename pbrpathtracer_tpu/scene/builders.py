@@ -124,7 +124,7 @@ def cornell_box(with_boxes: bool = True,
 def cornell_spheres_scene(n_seg: int = 12) -> Scene:
     """BASELINE config 2: Cornell box + glossy/metal (faceted) spheres.
 
-    TPU-native note: the reference supports triangles only, so "spheres" are
+    Note: the reference supports triangles only, so "spheres" are
     icosphere-style triangulations; one is glossy (roughness 0.3, metallic
     0.9), one a rough metal (roughness 1.0, metallic 1.0)."""
     scene = cornell_box(with_boxes=False)

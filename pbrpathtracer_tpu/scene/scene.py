@@ -1,4 +1,4 @@
-"""Scene-as-arrays: the functional core datamodel of the TPU renderer.
+"""Scene-as-arrays: the functional core datamodel of the renderer.
 
 The reference keeps its scene as ``std::vector<Triangle>`` with per-triangle
 ``Material*`` pointers resolved through ``(objectId, elementId)``
@@ -18,7 +18,6 @@ import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..utils.constants import (
     EPS,
@@ -26,9 +25,10 @@ from ..utils.constants import (
     NO_TEXTURE,
     OPAQUE,
 )
+from ..utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class Geometry:
     """Triangle soup with baked model matrices (pathtracer.cpp:41-145).
 
@@ -63,7 +63,7 @@ class Geometry:
         return self.v0, self.v0 + self.e1, self.v0 + self.e2
 
 
-@struct.dataclass
+@pytree_dataclass
 class Materials:
     """Flattened (object, element) material table (mesh.h:21-59).
 
@@ -87,7 +87,7 @@ class Materials:
         return self.diffuse.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Textures:
     """Padded texture stack.
 
@@ -108,7 +108,7 @@ class Textures:
         return self.data.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     """Pinhole + thin-lens camera (pathtracer.cpp:17-22, 333-360, 756-791).
 
@@ -140,7 +140,7 @@ class Camera:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scene:
     """Complete render-ready scene.
 
@@ -157,10 +157,10 @@ class Scene:
     # intersectors only.
     accel: object = None
     # Static metadata (not traced):
-    has_opacity_tex: bool = struct.field(pytree_node=False, default=False)
-    has_any_texture: bool = struct.field(pytree_node=False, default=False)
+    has_opacity_tex: bool = static_field(False)
+    has_any_texture: bool = static_field(False)
     # Any TRANSLUCENT material present (preview transparency pass gate).
-    has_translucent: bool = struct.field(pytree_node=False, default=False)
+    has_translucent: bool = static_field(False)
 
     @property
     def num_triangles(self) -> int:

@@ -11,9 +11,11 @@ from ..utils.constants import MAX_TEXTURE_DIM
 
 
 def load_texture(path: str):
-    """Load an image file → f32[H,W,4] in [0,1], or None on failure."""
+    """Load an image file → f32[H,W,4] in [0,1], or None when the file is
+    missing or unreadable. Decoding needs Pillow; without it this raises
+    ImportError rather than returning a black texture."""
+    from PIL import Image
     try:
-        from PIL import Image
         with Image.open(path) as im:
             im = im.convert("RGBA")
             w, h = im.size
@@ -24,7 +26,7 @@ def load_texture(path: str):
                                Image.BILINEAR)
             arr = np.asarray(im, np.uint8).astype(np.float32) / 255.0
             return arr
-    except Exception:
+    except OSError:
         return None
 
 

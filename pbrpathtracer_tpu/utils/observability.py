@@ -3,7 +3,8 @@
 The reference's only instrumentation is the status bar (samples, avg
 time/sample, elapsed, triangle count — main.cpp:2245-2348) plus transient
 status-text events with a 5 s TTL (main.cpp:2264-2270). This module keeps
-those counters first-class and adds what a TPU deployment needs: per-segment
+those counters first-class and adds what an accelerator deployment needs:
+per-segment
 wavefront occupancy, rays/s accounting, `jax.profiler` trace capture, and
 host-0-only structured logging for multi-host runs (SURVEY.md §5).
 """

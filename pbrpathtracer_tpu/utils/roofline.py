@@ -1,119 +1,111 @@
-"""Speed-of-light (roofline) model for the wavefront render step.
+"""Peak rates per device, and the speed-of-light bound of a compiled step.
 
-VERDICT round-1 item 2 asked for a *defined* speed-of-light target instead
-of an invented CPU constant: this module derives, for a compiled render
-step, the minimum possible device time as the max of
+``PEAKS`` is the one table of hardware rates in the repository, keyed by
+``jax.devices()[0].device_kind``. A device that is not in it raises: no
+peak is ever assumed. Published figures, dense, without sparsity, at the
+card's full power limit; a card capped below it (``nvidia-smi``'s
+``power.limit``) cannot hold its top clock under load, so report the
+limit beside any share of these peaks.
 
-  * the HBM-bandwidth bound  — bytes the program must move, from XLA's own
-    ``compiled.cost_analysis()['bytes accessed']`` (which reflects the real
-    post-fusion buffer traffic, not a hand count), divided by peak HBM
-    bandwidth; and
-  * the MXU bound — the analytically counted matmul FLOPs of the
-    intersection queries (the only MXU work in the hot path; see
-    ops/intersect.py: one [N,10]x[10,4*Tpad] product per query) divided by
-    the effective f32-via-bf16 matmul peak.
+The bound of a step is the larger of
 
-``fraction_of_roofline = t_roofline / t_measured`` is then an honest
-utilization number: 1.0 means the step runs at the speed of light for this
-program shape on this chip.
+  * bytes it moves (XLA's ``cost_analysis()['bytes accessed']``, the
+    post-fusion buffer traffic) over peak memory bandwidth, and
+  * floating-point operations over the fp32 rate outside the tensor
+    cores: the renderer's geometry runs at ``Precision.HIGHEST``, which
+    keeps matrix products in full fp32 (no TF32).
 
-Hardware constants (TPU v5e / "lite" core, public figures):
-  * HBM bandwidth 819 GB/s.
-  * MXU peak 197 TFLOP/s bf16. The matmul intersector runs at
-    ``precision=HIGHEST`` (f32-accurate via multi-pass bf16, see
-    ops/intersect.py:158-163), which costs ~6 bf16 passes per f32 product
-    ("bf16x6"), so the effective f32 matmul peak is ~32.8 TFLOP/s.
-  * VPU peak (elementwise f32): derived, not published. 197 TFLOP/s over
-    128x128 MACs x 2 flops x 4 MXUs implies a ~1.5 GHz clock; the VPU is
-    (8, 128) lanes x 4 ALUs = 4096 f32 ops/cycle -> ~6.1 TFLOP/s. Marked
-    as an estimate; it only affects the (rarely binding) VPU term.
-
-Caveats, stated so the number stays honest:
-  * XLA's cost analysis does NOT see inside Pallas custom calls, so the
-    Pallas intersector's pair-block arithmetic is added analytically
-    (``pallas_pair_flops``) and its VMEM traffic is not an HBM cost.
-  * The model prices the work the compiled program ISSUES at peak rates;
-    it is a utilization measure, not a proof of algorithmic optimality.
+XLA's cost analysis does not see inside Pallas calls, so the closest-hit
+kernel's arithmetic is added from its pair count (``pallas_pair_flops``),
+an upper bound: chunk culling skips most pairs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-HBM_BYTES_PER_S = 819e9          # TPU v5e
-MXU_BF16_FLOPS = 197e12          # TPU v5e peak
-F32_VIA_BF16_PASSES = 6          # precision=HIGHEST multi-pass factor
-MXU_F32_FLOPS = MXU_BF16_FLOPS / F32_VIA_BF16_PASSES
-VPU_F32_FLOPS = 6.1e12           # derived estimate, see module docstring
 
-# f32 ops per (ray, triangle) pair in the Pallas Moller-Trumbore block
-# (kernels/intersect_pallas.py:128-162: 3 cross products, 4 dots, the
-# acceptance tests and the masked running-min).
-PALLAS_FLOPS_PER_PAIR = 62
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    bf16_flops: float        # tensor cores, dense
+    tf32_flops: float        # tensor cores, dense
+    fp32_flops: float        # outside the tensor cores
+    hbm_bytes_per_s: float
+    source: str
+
+
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peaks(
+        bf16_flops=989e12, tf32_flops=495e12, fp32_flops=67e12,
+        hbm_bytes_per_s=3.35e12,
+        source="NVIDIA H100 SXM data sheet (dense rates, 700 W)"),
+}
+
+
+def peaks(device_kind: str) -> Peaks:
+    """Peak rates of ``device_kind``; raises KeyError when unknown."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no peak rates for device kind {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}") from None
+
+
+# fp32 add/sub/mul/div per (ray, triangle) pair in the Möller–Trumbore
+# body of kernels/intersect_pallas.py: cross product h (9), det a (5),
+# s (3), u numerator (5), cross product q (9), v and t numerators (10),
+# reciprocal (1), u, v, t (3), u + v (1).
+PALLAS_FLOPS_PER_PAIR = 46
 
 
 @dataclasses.dataclass(frozen=True)
 class Roofline:
     bytes_accessed: float        # HBM bytes, from XLA cost analysis
-    xla_flops: float             # elementwise+matmul flops XLA counts
+    xla_flops: float             # flops XLA counts
     pallas_flops: float          # analytic Pallas pair-block flops
     t_hbm_s: float
-    t_vpu_s: float               # (xla_flops + pallas_flops) / VPU peak
+    t_fp32_s: float              # (xla_flops + pallas_flops) / fp32 peak
     t_roofline_s: float
-    bound: str                   # "hbm" | "vpu"
+    bound: str                   # "hbm" | "fp32"
 
     def fraction(self, t_measured_s: float) -> float:
         return self.t_roofline_s / max(t_measured_s, 1e-12)
 
     def as_dict(self, t_measured_s: float | None = None) -> dict:
         d = {
-            "bytes_accessed_GB": round(self.bytes_accessed / 1e9, 3),
-            "xla_gflops": round(self.xla_flops / 1e9, 2),
-            "pallas_gflops": round(self.pallas_flops / 1e9, 2),
-            "t_hbm_ms": round(self.t_hbm_s * 1e3, 3),
-            "t_vpu_ms": round(self.t_vpu_s * 1e3, 3),
-            "t_roofline_ms": round(self.t_roofline_s * 1e3, 3),
+            "bytes_accessed_GB": self.bytes_accessed / 1e9,
+            "xla_gflops": self.xla_flops / 1e9,
+            "pallas_gflops": self.pallas_flops / 1e9,
+            "t_hbm_ms": self.t_hbm_s * 1e3,
+            "t_fp32_ms": self.t_fp32_s * 1e3,
+            "t_roofline_ms": self.t_roofline_s * 1e3,
             "bound": self.bound,
         }
         if t_measured_s is not None:
-            d["fraction_of_roofline"] = round(self.fraction(t_measured_s), 4)
+            d["fraction_of_roofline"] = self.fraction(t_measured_s)
         return d
-
-
-def intersect_matmul_flops(n_rays: int, n_tris_padded: int,
-                           n_queries: int) -> float:
-    """FLOPs of the MXU intersection formulation: [N,10]@[10,4*Tp] per
-    query = N * 10 * 4*Tp * 2 multiply-adds (ops/intersect.py:90-98)."""
-    return float(n_rays) * 10 * 4 * n_tris_padded * 2 * n_queries
 
 
 def pallas_pair_flops(n_rays: int, n_tris_padded: int,
                       n_queries: int) -> float:
-    """Upper-bound VPU FLOPs issued by the Pallas intersector: every
-    (ray, padded-tri) pair runs the Moller-Trumbore block unless chunk
-    culling skips it, so this bounds the issued work from above."""
+    """Upper bound of the fp32 operations the Pallas intersector issues:
+    every (ray, padded-triangle) pair, as if no chunk were culled."""
     return float(n_rays) * n_tris_padded * PALLAS_FLOPS_PER_PAIR * n_queries
 
 
 def xla_costs(compiled) -> tuple[float, float]:
-    """(HBM bytes, flops) from a compiled function's cost analysis.
-    Returns zeros when the backend does not expose the counters."""
-    try:
-        ca = compiled.cost_analysis()
-        if isinstance(ca, (list, tuple)):     # older JAX: one dict per device
-            ca = ca[0]
-        return (float(ca.get("bytes accessed", 0.0)),
-                float(ca.get("flops", 0.0)))
-    except Exception:
-        return 0.0, 0.0
+    """(HBM bytes, flops) from a compiled function's cost analysis."""
+    ca = compiled.cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0]
+    return float(ca.get("bytes accessed", 0.0)), float(ca.get("flops", 0.0))
 
 
-def build(bytes_accessed: float, xla_flops: float,
+def build(peak: Peaks, bytes_accessed: float, xla_flops: float,
           pallas_flops: float = 0.0) -> Roofline:
-    t_hbm = bytes_accessed / HBM_BYTES_PER_S
-    t_vpu = (xla_flops + pallas_flops) / VPU_F32_FLOPS
-    t = max(t_hbm, t_vpu)
+    t_hbm = bytes_accessed / peak.hbm_bytes_per_s
+    t_fp32 = (xla_flops + pallas_flops) / peak.fp32_flops
     return Roofline(bytes_accessed=bytes_accessed, xla_flops=xla_flops,
-                    pallas_flops=pallas_flops,
-                    t_hbm_s=t_hbm, t_vpu_s=t_vpu, t_roofline_s=t,
-                    bound="hbm" if t_hbm >= t_vpu else "vpu")
+                    pallas_flops=pallas_flops, t_hbm_s=t_hbm,
+                    t_fp32_s=t_fp32, t_roofline_s=max(t_hbm, t_fp32),
+                    bound="hbm" if t_hbm >= t_fp32 else "fp32")

@@ -1,4 +1,4 @@
-"""Deep parity stress (VERDICT r2 item 8): depth >= 4 with opacity + normal
+"""Deep parity stress: depth >= 4 with opacity + normal
 + roughness textures *simultaneously* and >= 2 stacked opacity layers, so a
 single closest-hit query can burn multiple stochastic-alpha re-trace
 attempts (ops/hit.py) — probing the keyed-slot bookkeeping and the bounded

@@ -2,7 +2,7 @@
 
 Validates the sampler math (unit directions, horizon clipping, energy
 bound), that the option changes only opaque-specular lanes, and — the
-point of GGX (VERDICT r2 item 7) — that roughness pixel-gradients match
+point of GGX — that roughness pixel-gradients match
 central finite differences, which the reference cone lobe cannot do
 (its roughness FD is hit-flip noise)."""
 

@@ -1,14 +1,13 @@
-"""Golden-image regression net (benchmarks/goldens.py): CPU renders must
-match the committed TPU-rendered goldens within Monte-Carlo + float-
-reassociation tolerance.
+"""Golden-image regression net (benchmarks/goldens.py): renders must match
+the committed goldens within Monte-Carlo + float-reassociation tolerance.
 
-Catches cross-round image drift from kernel/integrator rewrites: the RNG
-is keyed (pixel, sample, bounce), so both backends draw the same
-estimator samples — only ULP-level accumulation differences and the rare
-decision flip (hit tie, RR edge) separate the images. Cheap configs only
-(the full five-scene net runs in benchmarks/goldens.py check mode on the
-chip); rung-1/2/4 cover the dense kernel, integrator, GGX and
-translucent paths without multi-minute CPU renders.
+Catches image drift from kernel/integrator rewrites: the RNG is keyed
+(pixel, sample, bounce), so every backend draws the same estimator
+samples — only ULP-level accumulation differences and the rare decision
+flip (hit tie, RR edge) separate the images. Rungs 1/2/4 cover the dense
+intersector, integrator, GGX and translucent paths in seconds on the CPU;
+the 50k- and 200k-triangle rungs (BVH route) take minutes there, so they
+are marked slow and run on the card in chip_smoke.py phase 3.
 """
 
 import os
@@ -18,7 +17,9 @@ import pytest
 
 from benchmarks import goldens as G
 
-NAMES = ["rung1_cornell", "rung2_spheres", "rung4_translucent"]
+NAMES = ["rung1_cornell", "rung2_spheres", "rung4_translucent",
+         pytest.param("rung3_mesh50k", marks=pytest.mark.slow),
+         pytest.param("rung5_million", marks=pytest.mark.slow)]
 
 
 @pytest.mark.parametrize("name", NAMES)

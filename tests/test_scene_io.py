@@ -88,7 +88,7 @@ TENT_OBJ = textwrap.dedent("""\
 def test_smooth_normals_per_group(tmp_path):
     """previewer.cpp:84-294 re-shapes per smoothing-group id and smooths
     within the group only; the ridge vertices shared by groups 1 and 2
-    must keep each plane's own normal (VERDICT r2 missing #1)."""
+    must keep each plane's own normal."""
     p = tmp_path / "tent.obj"
     p.write_text(TENT_OBJ)
     tris = load_object_triangles(str(p))

@@ -122,8 +122,7 @@ def test_texture_gradients_flow():
 def test_texture_fit_at_scale_512():
     """BASELINE config-5-style texture fit with a REAL-sized texture leaf
     (512x512x4 per texture, ~8.4 MB of texel parameters): the scatter-add
-    texel VJP must produce finite grads and a decreasing loss
-    (VERDICT r3 next #8)."""
+    texel VJP must produce finite grads and a decreasing loss."""
     from pbrpathtracer_tpu.scene.big_scenes import (mesh_scene,
                                                     mesh_scene_camera)
     from pbrpathtracer_tpu.diff.fit import fit
